@@ -1,16 +1,16 @@
-"""adrates_tpu — a TPU-native fixed-income pricing and AD-risk framework.
+"""adrates_tpu — a fixed-income pricing and AD-risk framework in JAX.
 
 Capabilities mirror ludcode/ADRates ("Cavour"): multi-currency OIS / XCCY /
 inflation curve bootstrapping, swaps/bonds/FRNs/inflation products priced as
 discounted cashflows, and exact tenor-bucketed deltas, NxN gammas and
 cross-gammas via JAX autodiff chained through the curve bootstrap.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
  - trade *compilation* (dates/calendars/day counts/schedules) happens once in
    Python and produces static padded cashflow tensors;
  - *pricing* is pure jitted JAX (lax.scan bootstraps, fused interpolation,
    jacrev/hessian risk), vmap-able over books and scenario grids and
-   shardable over TPU meshes with shard_map/pjit.
+   shardable over device meshes with shard_map/GSPMD.
 
 Numerical policy: float64 (enabled at import) to hold the reference's
 1e-10..1e-12 calibration tolerances.

@@ -186,8 +186,8 @@ def compute_frn(engine, derivative, reqs) -> AnalyticsResult:
         want = (RequestTypes.VALUE in reqs, RequestTypes.DELTA in reqs,
                 RequestTypes.GAMMA in reqs)
 
-        # plans/tensor as jit args (f64 closure constants run at f32 in
-        # fused TPU ops, docs/tpu_f64_notes.md)
+        # plans/tensor as jit args, never closure constants
+        # (docs/f64_notes.md rule 6)
         consts = dict(disc_plan=disc_curve._plan,
                       idx_plan=idx_curve._plan, tensor=tensor)
 

@@ -91,8 +91,8 @@ def _cpi_ref(index, infl_curve, ref_dt, value_dt):
 
 def _factor_fn(infl_curve):
     """factor(t) interpolator over the (differentiable) factor grid.
-    The pillar-time grid travels as an argument (f64 closure constants run
-    at f32 in fused TPU ops, docs/tpu_f64_notes.md)."""
+    The pillar-time grid travels as an argument, never a closure constant
+    (docs/f64_notes.md rule 6)."""
     it = infl_curve._interp_type
 
     def factor_at(breakevens, t_query, swap_times):
@@ -207,7 +207,7 @@ def compute_yoy_iis(engine, derivative, reqs: Set[RequestTypes]
     it = ois_curve._interp_type
 
     # every f64 value (arrays AND scalars) rides in the consts pytree as a
-    # jit argument, never a closure constant — docs/tpu_f64_notes.md
+    # jit argument, never a closure constant — docs/f64_notes.md rule 6
     consts = dict(plan=plan, fixed_tensor=fixed_tensor, pay_t=pay_t,
                   s_t=s_t, e_t=e_t, s_val=s_val, e_val=e_val,
                   seas_s=seas_s, seas_e=seas_e, alphas=alphas,
@@ -307,7 +307,7 @@ def compute_zcis(engine, derivative, reqs: Set[RequestTypes]
     plan = ois_curve._plan
     it = ois_curve._interp_type
 
-    # f64 scalars/arrays as jit args (docs/tpu_f64_notes.md)
+    # f64 scalars/arrays as jit args (docs/f64_notes.md rule 6)
     consts = dict(plan=plan,
                   q=np.array([pay_t, 0.0], dtype=np.float64),
                   tq=np.array([b_t, f_t], dtype=np.float64),

@@ -48,7 +48,7 @@ def find_xccy_curve(model, derivative, allow_fallback: bool = False):
     """Locate the XCCY curve calibrated for this currency pair by EXACT
     index match. A mismatched pair raises — discounting a trade on some
     other pair's basis curve silently mislabels the whole risk ladder
-    (VERDICT round-2 item 5; the reference's engine routes by a
+    (the reference's engine routes by a
     constructed curve name and KeyErrors, engine.py:1429-1442).
     ``allow_fallback=True`` opts back in to "any single XccyCurve" for
     deliberately index-agnostic setups."""
@@ -155,9 +155,8 @@ def compute_xccy(engine, derivative, reqs: Set[RequestTypes]
     for_is_fixed = isinstance(for_leg, SwapFixedLeg)
 
     # Every f64 input (tensors, grids, scalars like spot FX / notionals)
-    # rides in the consts pytree as a jit ARGUMENT: f64 closure constants
-    # are embedded in the compiled TPU program and participate in fused
-    # elementwise ops at f32 (docs/tpu_f64_notes.md).
+    # rides in the consts pytree as a jit ARGUMENT, never a closure
+    # constant (docs/f64_notes.md rule 6).
     consts = dict(spot_fx=np.float64(xccy_curve._spot_fx))
     if dom_is_fixed:
         eff_t, mat_t = _fixed_exchange_times(derivative, value_dt)

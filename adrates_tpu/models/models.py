@@ -128,8 +128,7 @@ class Model:
     # ------------------------------------------------------------------
 
     def build_parallel(self, *waves):
-        """Run independent curve builds concurrently (cold start,
-        VERDICT r3 item 1): each wave is an iterable of zero-arg
+        """Run independent curve builds concurrently (cold start): each wave is an iterable of zero-arg
         callables (closures over ``build_curve`` / ``build_xccy_curve``
         / ``build_inflation_curve`` calls) executed on a thread pool;
         waves run sequentially so later waves may read curves built by
@@ -288,8 +287,8 @@ class Model:
 
         from ..ops.bootstrap import bootstrap_ois
 
-        # base/plan as jit args (f64 closure constants run at f32 in
-        # fused TPU ops, docs/tpu_f64_notes.md)
+        # base/plan as jit args, never closure constants
+        # (docs/f64_notes.md rule 6)
         @jax.jit
         def run(shock_matrix, base_, plan_):
             def one(shock_vec):

@@ -1,6 +1,6 @@
 """Leg pricing kernels — pure jitted tensor functions.
 
-TPU-native equivalents of the reference engine's JAX pricers
+Jitted tensor equivalents of the reference engine's JAX pricers
 (/root/reference/cavour/market/position/engine.py: _price_fixed_leg_jax at
 2414-2448, _float_leg_jax at 2639-2728), with identical masking, first-fixing
 override, notional-exchange and sign semantics, generalized to:
@@ -81,9 +81,9 @@ def pv_fixed_leg(dfs, times, interp_type: InterpTypes,
     engine.py:2414-2448 (future-payment mask, relative DFs, principal on
     the final flow, leg sign).
 
-    TPU f64 note: the valuation-time DF is batched into the payment query
+    f64 note: the valuation-time DF is batched into the payment query
     and the principal/sign are folded into the payment vector so no rank-0
-    fused chain exists (docs/tpu_f64_notes.md rule 1-2).
+    fused chain exists (docs/f64_notes.md rules 1-2).
     """
     n = leg.payment_times.shape[0]
     qt = jnp.concatenate([leg.payment_times,
@@ -124,7 +124,7 @@ def pv_float_leg(dfs, times, disc_interp_type: InterpTypes,
         idx_out = simple_df_static(plans["idx"], idx_dfs, idx_it)
         disc_out = simple_df_static(plans["disc"], dfs, disc_interp_type)
     else:
-        # One batched query per curve (TPU f64: no 1-element queries,
+        # One batched query per curve (no 1-element queries, rule 2,
         # and a single fused searchsorted+gather per curve is the fast
         # path).
         idx_q = jnp.concatenate([leg.start_times, leg.end_times])

@@ -3,7 +3,7 @@
 The reference bootstraps the foreign-in-domestic-collateral curve with a
 lax.scan over every payment point, carrying mutable per-point state and an
 [n,n] same-swap mask matrix (xccy_curve.py:954-1206). This module solves the
-same recurrence in closed form the TPU way:
+same recurrence in closed form, vectorized:
 
  - Between par solves, the flat-forward-basis chain
        df_i = df_prev * (df_ois_i / df_ois_prev) * exp(-basis_i * dt_i)
@@ -14,8 +14,8 @@ same recurrence in closed form the TPU way:
    sum_s C_s * W[k, s]  where W is a tiny [S, S+1] weight matrix
    (einsum over static one-hot masks), so the sequential part collapses
    from n payment points to S pillars — a scan whose carry is the
-   [S+1] segment-correction vector (VPU-shaped, f64-exact per
-   docs/tpu_f64_notes.md; per-step scalars are computed on 2-vectors).
+   [S+1] segment-correction vector (vector-shaped per docs/f64_notes.md;
+   per-step scalars are computed on 2-vectors).
 
 Differentiable w.r.t. basis spreads, the foreign OIS discount grid, and
 the per-swap domestic-leg PVs, so every jacobian/hessian/cross-hessian the
@@ -45,8 +45,8 @@ class XccyBootstrapPlan:
     """Static topology of an XCCY bootstrap (chain points sorted by
     (time, swap index); value-date points excluded from the chain).
 
-    Registered pytree: pass as a jit ARGUMENT, never close over it — f64
-    closure constants run at f32 in fused TPU ops (docs/tpu_f64_notes.md).
+    Registered pytree: pass as a jit ARGUMENT, never close over it
+    (docs/f64_notes.md rule 6).
     """
     times: np.ndarray            # [n] payment times (ACT/365F curve units)
     pay_t_foreign: np.ndarray    # [n] payment times in foreign-curve units

@@ -7,12 +7,12 @@ Python loop (portfolio.py:39-66) and scenario() rebuilds a Model per shock
  - at compile time every trade's payment/accrual dates collapse into ONE
    sorted unique-time grid; trades hold int32 indices into it. Pricing a
    whole book is then: one bootstrap, one interpolation over the unique
-   grid (O(U), not O(B x P)), and per-trade gathers + fused VPU arithmetic;
+   grid (O(U), not O(B x P)), and per-trade gathers + fused arithmetic;
  - scenario grids vmap over a shock matrix on top;
  - the trade axis shards over a jax.sharding.Mesh: each device prices its
-   slice and portfolio aggregates ride ICI psum under GSPMD.
+   slice and portfolio aggregates are all-reduced under GSPMD.
 
-Everything is f64-vector-shaped per docs/tpu_f64_notes.md.
+Everything is f64-vector-shaped per docs/f64_notes.md.
 """
 
 from __future__ import annotations
@@ -355,8 +355,8 @@ def make_book_fn(plan, interp_type, want_gamma: bool = True):
     AD graph never differentiates through the [B, P] gathers.
     """
 
-    # plan rides as a jit ARGUMENT (f64 closure constants run at f32 in
-    # fused TPU ops, docs/tpu_f64_notes.md); the public signature is
+    # plan rides as a jit ARGUMENT (docs/f64_notes.md rule 6); the
+    # public signature is
     # unchanged. device_put once so repeat calls don't re-transfer it.
     plan = jax.device_put(plan)
 
@@ -414,7 +414,7 @@ def shard_book(book: BookTensors, mesh: Mesh, axis: str = "book"
 def make_sharded_book_fn(plan, interp_type, mesh: Mesh,
                          axis: str = "book", want_gamma: bool = True):
     """Book analytics under GSPMD: trades sharded over the mesh, quote
-    vector replicated, per-scenario aggregates all-reduced over ICI."""
+    vector replicated, per-scenario aggregates all-reduced across devices."""
     repl = NamedSharding(mesh, P())
 
     book_shardings = BookTensors(
@@ -424,7 +424,7 @@ def make_sharded_book_fn(plan, interp_type, mesh: Mesh,
            if f.name != "unique_times"})
 
     # plan replicated as an argument (prefix sharding broadcasts over its
-    # leaves); f64 closure constants run at f32 in fused TPU ops.
+    # leaves), never a closure constant (docs/f64_notes.md rule 6).
     plan = jax.device_put(plan, repl)
 
     @partial(jax.jit, in_shardings=(repl, repl, book_shardings, repl))

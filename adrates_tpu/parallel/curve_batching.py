@@ -1,19 +1,16 @@
 """Batched curve-graph construction: one vmapped bootstrap per GROUP of
 same-topology curves instead of one unrolled subgraph per curve.
 
-Why this module exists (round-3 blocker): the multibook risk programs
-differentiate the quotes->grids curve graph once (jacobian) and twice
-(curve-Hessian contraction). With 12 curves unrolled the graph is ~3.6k
-StableHLO ops and its double-differentiation ~15k; the XLA:TPU backend
-compiles this class of f64 program at ~60 ops/s through the remote
-service, so every AD pass costs 100-250+ s of COMPILE time and the
-S=100 closed-form risk program never finished (bench timeout). Batching
-same-shape curves into vmapped group bootstraps cuts the op count
-roughly by the group sizes (7 OIS -> 1 vmapped bootstrap, 3 XCCY -> 1,
-2 inflation -> 1, 12 interpolation fits -> 1) while keeping results
-identical: runtime was never the problem (the r2 note about vmapped
-bootstraps regressing runtime 12% traded the wrong resource — compile
-dominates end-to-end here).
+Why this module exists: the multibook risk programs differentiate the
+quotes->grids curve graph once (jacobian) and twice (curve-Hessian
+contraction). With 12 curves unrolled the graph is ~3.6k StableHLO ops
+and its double-differentiation ~15k, and compile time grows with the op
+count. Batching same-shape curves into vmapped group bootstraps cuts the
+op count roughly by the group sizes (7 OIS -> 1 vmapped bootstrap, 3
+XCCY -> 1, 2 inflation -> 1, 12 interpolation fits -> 1) while keeping
+results identical. (On the accelerator this was first built for, the
+unrolled S=100 risk program never finished compiling; XLA:GPU's compile
+time for either form is not measured yet.)
 
 Padding semantics (all static, built once in numpy):
 
@@ -385,8 +382,7 @@ def build_batched_grids(basket, unique_times: np.ndarray,
     points/256) — mixed-pillar-count models (e.g. the flagship's
     32-pillar majors + 12-pillar minors) merge into ONE vmapped OIS
     stage, which removes a whole stage subgraph from EVERY risk-program
-    trace (the remote XLA:TPU service compiles ~35-70 ops/s, so each
-    duplicated stage trace is tens of cold-start seconds) at the price
+    trace (each duplicated stage trace adds compile time) at the price
     of padded per-member tangent directions at runtime.
     """
     if stage_buckets == "coarse":
@@ -639,9 +635,8 @@ def build_batched_grids(basket, unique_times: np.ndarray,
             bat[st.key]["row_plan_keep"] = plan
 
     def grids(qvec, P):
-        # query times come from params, never the closure: f64 closure
-        # constants participate in fused TPU ops at f32
-        # (docs/tpu_f64_notes.md)
+        # query times come from params, never the closure
+        # (docs/f64_notes.md rule 6)
         ut = P["unique_times"]
         B = P["bat"]
         native: Dict[int, tuple] = {}      # id -> (ts, ds) 1-D

@@ -3,8 +3,7 @@
 A trade's exact gamma lives on its own curves' quote slots: quotes that
 cannot move any curve the trade's cashflows gather from have identically
 zero second-order effect on its PV. So instead of the dense
-[B, N, N] per-trade tensor (terabytes at flagship scale — VERDICT r3
-missing #3; the reference assembles the same shape one position at a
+[B, N, N] per-trade tensor (terabytes at flagship scale; the reference assembles the same shape one position at a
 time, /root/reference/cavour/market/position/engine.py:2563-2568), this
 module emits, for EVERY trade, its own-block matrix [k, k] plus the
 block's quote-index map, where k = the total quote count of the curves

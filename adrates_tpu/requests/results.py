@@ -11,16 +11,19 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
+from typing import (TYPE_CHECKING, Any, Dict, Iterable, List, Optional,
+                    Tuple, Union)
 
 import numpy as np
-import pandas as pd
 
 from ..utils.currency import CurrencyTypes
 from ..utils.date import Date
 from ..utils.global_types import CurveTypes
 from .results_base import (AggregationMixin, BaseResult, ExportMixin,
                            ValidationMixin)
+
+if TYPE_CHECKING:  # pandas is needed only for the .df views
+    import pandas as pd
 
 
 @dataclass(frozen=True)
@@ -76,6 +79,7 @@ class Valuation:
 
     @property
     def df(self) -> pd.DataFrame:
+        import pandas as pd
         return pd.DataFrame([self.to_dict()])
 
     def to_csv(self, filepath: Optional[str] = None) -> Optional[str]:
@@ -107,6 +111,7 @@ class Ladder:
 
     @property
     def df(self) -> pd.DataFrame:
+        import pandas as pd
         df = pd.DataFrame.from_dict(self.data, orient="index",
                                     columns=[f"{self._curve_name}_Risk"])
         df.index.name = "Tenor"
@@ -166,6 +171,7 @@ class Delta:
 
     @property
     def df(self) -> pd.DataFrame:
+        import pandas as pd
         return self.ladder.df
 
     def __repr__(self):
@@ -259,6 +265,7 @@ class Gamma:
 
     @property
     def df(self) -> pd.DataFrame:
+        import pandas as pd
         m = self.risk_ladder
         if m.ndim == 1:
             m = np.diag(m)
@@ -419,6 +426,7 @@ class CrossGamma:
 
     @property
     def df(self) -> pd.DataFrame:
+        import pandas as pd
         df = pd.DataFrame(self.risk_matrix, index=self.tenors_curve1,
                           columns=self.tenors_curve2)
         df.index.name = f"{self.curve_type_1.name} \\ {self.curve_type_2.name}"
@@ -559,6 +567,7 @@ class Cashflows(BaseResult, ExportMixin, AggregationMixin):
 
     @property
     def df(self) -> pd.DataFrame:
+        import pandas as pd
         return pd.DataFrame([cf.to_dict() for cf in self._items])
 
     def _filter(self, pred) -> "Cashflows":

@@ -8,7 +8,7 @@ the risk engine consumes (_jac_basis 594, _hess_basis 596-606,
 _jac_foreign_curve_dfs 670, _mixed_hess_foreign_basis 673-693).
 
 The solve itself lives in ops/xccy_bootstrap.py as a pillar-sequential
-vectorized recursion (see that module for the TPU rationale). FX convention
+vectorized recursion (see that module for the rationale). FX convention
 is unified: spot_fx = DOMESTIC per FOREIGN (the reference mixes inverse
 conventions across modules).
 """
@@ -34,8 +34,8 @@ from ...utils.helpers import label_to_string, times_from_dates
 SWAP_TOL = 1e-10
 
 # module-level jit, one compile per (plan shape, foreign scheme): the
-# constructor bootstrap otherwise runs eager op-by-op (cold start,
-# VERDICT r3 item 1). spot_fx rides as an argument, plan is a pytree.
+# constructor bootstrap otherwise runs eager op-by-op (cold start).
+# spot_fx rides as an argument, plan is a pytree.
 from ...utils.compile_cache import build_jit  # noqa: E402
 
 _bootstrap_xccy_jit = build_jit(
@@ -255,8 +255,7 @@ class XccyCurve(DiscountCurve):
         """XCCY node DFs as a function of (spreads, foreign grid DFs).
 
         ``consts`` carries (pv_domestic, foreign grid times, plan) as a jit
-        argument — f64 closure constants run at f32 in fused TPU ops
-        (docs/tpu_f64_notes.md)."""
+        argument, never a closure constant (docs/f64_notes.md rule 6)."""
         if consts is None:
             consts = self._jac_consts()
         _, dfs = bootstrap_xccy(

@@ -1,6 +1,6 @@
 """Convention-layer utilities (dates, calendars, day counts, schedules,
 enums, math kernels). Everything here runs at trade-compile time in plain
-Python/numpy; the jnp math kernels compile onto TPU."""
+Python/numpy; the jnp math kernels compile onto the accelerator."""
 
 from .error import LibError
 from .global_vars import gDaysInYear, gSmall, g_small

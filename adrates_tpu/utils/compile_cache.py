@@ -1,140 +1,78 @@
-"""Persistent XLA compile cache + warmup — the package-level story for
-the flagship's cold-compile cost (VERDICT round-2 item 8).
+"""Persistent XLA compile cache and the host-side jit used by curve builds.
 
-The 100k-book gamma program is the largest compile in the package
-(~2 minutes through a remote-compile TPU service). Nothing about that
-cost is per-process: XLA's persistent compilation cache replays the
-executable byte-for-byte, so the SECOND process to price the flagship
-pays milliseconds. The cache setup lived in bench.py in round 2; it
-belongs to the library.
+The flagship book-risk programs are the largest compiles in the package.
+Nothing about that cost is per-process: XLA's persistent compilation
+cache replays the executable, so a second process with the same programs
+skips the compiles. A cache directory that moves is never hit, so it
+lives at one fixed place:
+
+- ``JAX_COMPILATION_CACHE_DIR``, exactly, where that is set;
+- otherwise ``<checkout>/.jax_cache`` (listed in ``.gitignore``).
 
 Usage:
     import adrates_tpu
-    adrates_tpu.configure_cache()            # default dir, or pass one
+    adrates_tpu.configure_cache()
     fn = adrates_tpu.parallel.warmup_multibook(mb, n_scenarios=100)
-
-Environment variables honored (same knobs, no code):
-    JAX_COMPILATION_CACHE_DIR            cache directory
-    ADRATES_CACHE_DIR                    ours; lower precedence than JAX's
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
-from typing import Optional
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "adrates_tpu", "xla")
+_CHECKOUT_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
-def _host_fingerprint() -> str:
-    """Short stable id for THIS machine's CPU. XLA:CPU cache entries are
-    AOT executables specialized to the compile host's ISA features
-    (AVX-512 variants, AMX, ...); replaying one on a host missing a
-    feature is a potential SIGILL, and the loader warns loudly about it
-    (cpu_aot_loader.cc). JAX's cache key does NOT include the host CPU,
-    so we segregate the cache directory by a fingerprint instead —
-    entries are only ever replayed on a machine that hashes the same.
-
-    Note: cpu_aot_loader also warns about the XLA-internal tuning
-    pseudo-features ``prefer-no-scatter``/``prefer-no-gather`` (they are
-    in the compile-target feature list but are not CPU flags, so the
-    host check can never match them). Those two warnings are spurious
-    and appear even replaying an entry on the machine that compiled it;
-    the fingerprint cannot and does not suppress them."""
-    parts = [platform.machine(), platform.processor()]
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    parts.append(line.strip())
-                    break
-    except OSError:
-        pass
-    return hashlib.sha256("|".join(parts).encode()).hexdigest()[:12]
+def cache_dir() -> str:
+    """The one cache directory: JAX_COMPILATION_CACHE_DIR if set, else
+    ``<checkout>/.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or _CHECKOUT_CACHE
 
 
 # Curve-construction kernels run in MICROSECONDS on tiny host-CPU
 # shapes, so LLVM codegen quality is irrelevant — but LLVM's optimizer
-# dominates their cold compile cost (measured: opt level 0 halves the
-# XLA:CPU compile of a representative kernel, 1.38 s -> 0.69 s, bitwise
-# identical results — no fast-math is implied by the opt level). Scenario
-# and book-scale programs keep full optimization.
+# dominates their cold compile cost (measured on XLA:CPU: opt level 0
+# halves the compile of a representative kernel, 1.38 s -> 0.69 s,
+# bitwise identical results — no fast-math is implied by the opt level).
+# Scenario and book-scale programs keep full optimization.
 BUILD_COMPILER_OPTIONS = {"xla_backend_optimization_level": 0}
 
 
 def build_jit(fun=None, **jit_kwargs):
     """``jax.jit`` for host-side curve-construction kernels: applies
-    :data:`BUILD_COMPILER_OPTIONS` (cold start, VERDICT r3 item 1).
-    Falls back to a plain jit on jax versions without per-jit
-    ``compiler_options``."""
+    :data:`BUILD_COMPILER_OPTIONS`."""
     import jax
 
     def wrap(f):
-        try:
-            return jax.jit(f, compiler_options=BUILD_COMPILER_OPTIONS,
-                           **jit_kwargs)
-        except TypeError:
-            return jax.jit(f, **jit_kwargs)
+        return jax.jit(f, compiler_options=BUILD_COMPILER_OPTIONS,
+                       **jit_kwargs)
 
     return wrap if fun is None else wrap(fun)
 
 
-def configure_cache(cache_dir: Optional[str] = None,
-                    min_compile_secs: float = 1.0) -> str:
-    """Enable JAX's persistent compilation cache for every program this
-    package (or anything else in the process) compiles.
-
-    Precedence: explicit argument > JAX_COMPILATION_CACHE_DIR >
-    ADRATES_CACHE_DIR > ~/.cache/adrates_tpu/xla. The directory is
-    suffixed with a per-host CPU fingerprint (see _host_fingerprint) so
-    CPU AOT entries never cross machines. Returns the directory in use.
-    Safe to call more than once."""
+def configure_cache(min_compile_secs: float = 1.0) -> str:
+    """Enable JAX's persistent compilation cache at :func:`cache_dir` for
+    every program this process compiles. Returns the directory. Safe to
+    call more than once."""
     import jax
 
-    cache_dir = (cache_dir
-                 or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-                 or os.environ.get("ADRATES_CACHE_DIR")
-                 or _DEFAULT_DIR)
-    cache_dir = os.path.join(cache_dir, _host_fingerprint())
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    path = cache_dir()
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",
                       float(min_compile_secs))
-    return cache_dir
+    return path
 
 
-def _cache_root(cache_root: Optional[str] = None) -> str:
-    """The cache PARENT directory (above the per-host fingerprint
-    subdirs), resolved with the same precedence as configure_cache."""
-    return (cache_root
-            or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-            or os.environ.get("ADRATES_CACHE_DIR")
-            or _DEFAULT_DIR)
-
-
-def export_cache(dest_tar: str,
-                 cache_root: Optional[str] = None) -> str:
-    """Pack the persistent compile cache into a ``.tar.gz`` to ship with
-    a deployment — the other half of the cold-start story (the first
-    half is the staged parallel precompile,
-    parallel.make_staged_multibook_fn): a fresh production host unpacks
-    the archive and pays ZERO compiles for every program the build host
-    already compiled.
-
-    The archive contains the whole cache ROOT including the per-host
-    CPU-fingerprint subdirectories, so shipping is always safe: a host
-    whose CPU hashes differently simply never reads the foreign CPU
-    entries (XLA:CPU cache entries are AOT executables specialized to
-    the compile host's ISA — replaying one elsewhere risks SIGILL, see
-    _host_fingerprint). TPU entries are keyed by jax version + device
-    kind inside the cache itself; ship between identical jax versions.
-    """
+def export_cache(dest_tar: str) -> str:
+    """Pack the cache directory into a ``.tar.gz`` to ship with a
+    deployment: a host with the same jax version and device kind that
+    unpacks it (:func:`import_cache`) skips every compile the build host
+    already made."""
     import tarfile
 
-    root = _cache_root(cache_root)
+    root = cache_dir()
     if not os.path.isdir(root):
         raise FileNotFoundError(f"no compile cache at {root}")
     with tarfile.open(dest_tar, "w:gz") as tf:
@@ -142,20 +80,13 @@ def export_cache(dest_tar: str,
     return dest_tar
 
 
-def import_cache(src_tar: str, cache_root: Optional[str] = None,
-                 min_compile_secs: float = 1.0) -> str:
-    """Unpack a shipped compile-cache archive (export_cache) into this
-    host's cache root and activate it. Returns the active (fingerprint-
-    suffixed) cache directory. Entries compiled on a host with a
-    different CPU fingerprint land in their own subdirectory and are
-    never replayed here."""
+def import_cache(src_tar: str, min_compile_secs: float = 1.0) -> str:
+    """Unpack an :func:`export_cache` archive into the cache directory
+    and activate it. Returns the directory."""
     import tarfile
 
-    root = _cache_root(cache_root)
+    root = cache_dir()
     os.makedirs(root, exist_ok=True)
     with tarfile.open(src_tar) as tf:
-        try:
-            tf.extractall(root, filter="data")
-        except TypeError:  # python < 3.12: no extraction filters
-            tf.extractall(root)  # noqa: S202 — trusted deployment artifact
-    return configure_cache(root, min_compile_secs=min_compile_secs)
+        tf.extractall(root, filter="data")
+    return configure_cache(min_compile_secs=min_compile_secs)

@@ -1,24 +1,22 @@
 """Latency-tier vs throughput-tier device routing.
 
-TPU-first does NOT mean every op on the TPU. The chip earns its keep on
-the batched book/scenario graphs (``parallel/``); curve CONSTRUCTION and
-single-trade engine requests are tiny scalar-shaped f64 programs whose
-cost on a TPU is dominated by per-program XLA:TPU compilation (~20-40 s
-each, one per curve topology) and per-dispatch host<->device latency —
-while the same programs compile on the host CPU backend in milliseconds
-and run in microseconds, in NATIVE float64. This module routes those two
-tiers:
+The accelerator earns its keep on the batched book/scenario graphs
+(``parallel/``). Curve CONSTRUCTION and single-trade engine requests are
+tiny scalar-shaped f64 programs whose cost is dominated by compiling one
+program per curve topology and by per-dispatch host<->device latency,
+while the same programs run in microseconds on the host CPU backend. This
+module routes those two tiers:
 
  - build tier  (curve bootstraps, refit gates, curve jacobians)
  - request tier (per-trade Engine.compute analytics)
 
 Both default to the host CPU backend when one is available alongside the
 accelerator; the book-scale functions in ``parallel/`` never use these
-contexts and always target the default (TPU) backend. Override with
+contexts and always target the default backend. Override with
 ``ADRATES_BUILD_DEVICE`` / ``ADRATES_REQUEST_DEVICE`` set to ``default``
-(leave on the default backend, e.g. to measure on-chip calibration —
-tests/test_tpu_precision.py drives the raw kernels there directly) or
-``host``.
+(leave on the default backend, e.g. to check calibration on the card —
+``chip_smoke.py`` builds the flagship curves and the quickstart on both
+tiers) or ``host``. Which tier is faster on a GPU is not measured yet.
 
 The reference has no equivalent tiering — it is single-device by
 construction (SURVEY §2 parallelism checklist).

@@ -1,10 +1,10 @@
 """Numerical kernels: normal distribution, solvers, NPV.
 
-TPU-native replacements for the reference's numba kernels
+JAX replacements for the reference's numba kernels
 (/root/reference/cavour/utils/math.py: N at 317, norminvcdf at 519,
 phi2/M at 592-599, phi3 at 481, cholesky at 674, tridiagonal at 734,
 npv at 700, accrued_interpolator at 66). Everything here is expressed in
-jax.numpy so it JITs onto the TPU VPU and is differentiable; scalar numpy
+jax.numpy so it JITs onto the accelerator and is differentiable; scalar numpy
 fallbacks are unnecessary because jnp handles both.
 """
 
@@ -109,9 +109,8 @@ def solve_tridiagonal(lower, diag, upper, rhs):
     """Tridiagonal solve via parallel cyclic reduction (PCR).
 
     lower[0] and upper[-1] are ignored. All inputs length n. log2(n)
-    whole-vector elimination steps — differentiable, and f64-exact on TPU
-    where a scalar Thomas scan would silently run at f32 precision and
-    XLA's f64 LU is unimplemented (docs/tpu_f64_notes.md rules 3-4).
+    whole-vector elimination steps — differentiable, with no rank-0 scan
+    carry and no LU solve (docs/f64_notes.md rules 3-4).
     """
     a = jnp.asarray(lower)
     b = jnp.asarray(diag)
@@ -208,7 +207,7 @@ def minimum(a, b):
 # ---------------------------------------------------------------------------
 # Vector utility compat surface (reference math.py:105-800). The reference
 # implements these as numba scalar loops; here they are numpy one-liners —
-# they are host-side conveniences, not TPU compute paths.
+# they are host-side conveniences, not device compute paths.
 
 def scale(x, factor: float):
     """Scale every element of an array (reference math.py:105-111)."""
@@ -315,7 +314,7 @@ def band_matrix_multiplication(A, m1: int, m2: int, b):
 def solve_tridiagonal_matrix(A, r):
     """Solve A u = r for tridiagonal A in (n, 3) compact rows (a, b, c)
     with a[0]/c[-1] unused (reference math.py:734-773). Routes to the
-    PCR solver above — differentiable and TPU-f64-safe."""
+    PCR solver above — differentiable, no LU solve."""
     A = np.asarray(A, dtype=np.float64)
     if A.ndim != 2 or A.shape[1] != 3:
         raise ValueError(f"A must be (n, 3) compact tridiagonal, got "

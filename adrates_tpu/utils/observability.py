@@ -1,6 +1,6 @@
 """Structured logging + timing instrumentation.
 
-SURVEY §5 named metrics/observability a TPU-build obligation the reference
+SURVEY §5 named metrics/observability an obligation of this build the reference
 lacks (it has only bare prints, reference engine.py:1896 debug prints /
 PrettyTable __repr__s). This module provides:
 

@@ -2,10 +2,11 @@
 
 The staged risk pass materializes [chunk, N, C*U] jacobians; at
 flagship_v5 (U=4,337, C=12) that axis is 52k wide, which both caps the
-scenario chunk at ~21 and scales the term1/term2 FLOPs. But each curve
-only ever serves the times ITS trades reference — this probe counts the
+scenario chunk and scales the term1/term2 FLOPs. But each curve only
+ever serves the times ITS trades reference — this probe counts the
 referenced (curve, time) pairs across every index table to size the win
-of compacting the grid axis.
+of compacting the grid axis. Host-only (no device programs); run from
+the repo root: python benchmarks/probe_grid_sparsity.py
 """
 
 import sys
@@ -17,13 +18,13 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, ".")
-import bench  # noqa: E402
+from benchmarks.flagship_book import build_base_trades, build_model  # noqa: E402,E501
 
 
 def main():
     rng = np.random.default_rng(7)
-    model = bench.build_model()
-    trades, coll = bench.build_base_trades(model, rng)
+    model = build_model()
+    trades, coll = build_base_trades(model, rng)
     from adrates_tpu.parallel import compile_multibook
     from adrates_tpu.utils import CurrencyTypes
 

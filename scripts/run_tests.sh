@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Full partitioned test run (VERDICT r3 weak #5: the suite exceeds any
+# Full partitioned test run (the suite exceeds any
 # single pytest invocation's sane wall clock, so the partitions live in
 # this script, not in folklore).
 #
@@ -8,8 +8,7 @@
 #   scripts/run_tests.sh full    -> quick + every slow partition,
 #                                   sequentially
 #
-# Wall clock depends on the host (VERDICT r4 weak #5 — name the
-# hardware): quick is ~4-5 min on a laptop-class multi-core CPU and
+# Wall clock depends on the host: quick is ~4-5 min on a laptop-class multi-core CPU and
 # ~9 min on a 1-vCPU cloud box; full is ~25-35 min laptop-class,
 # ~35-45 min on 1 vCPU. Run partitions strictly SEQUENTIALLY — on
 # small hosts parallel pytest invocations starve each other.

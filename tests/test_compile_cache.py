@@ -1,22 +1,23 @@
-"""Persistent compile-cache lifecycle: configure -> populate -> export
--> import on a "fresh host" (clean cache root). The shipped-cache
-archive is the deployment-time half of the flagship cold-start story
-(the in-process half is the staged parallel precompile,
-test_staged_risk.py)."""
+"""Persistent compile-cache lifecycle: the directory rule (the env
+directory exactly, else ``<checkout>/.jax_cache``), then configure ->
+populate -> export -> import on a "fresh host" (another directory)."""
 
 import os
 import tarfile
 
 import jax
 import jax.numpy as jnp
+import pytest
 
-from adrates_tpu.utils.compile_cache import (configure_cache,
-                                             export_cache, import_cache,
-                                             _host_fingerprint)
+import adrates_tpu
+from adrates_tpu.utils.compile_cache import (cache_dir, configure_cache,
+                                             export_cache, import_cache)
+
+ENV = "JAX_COMPILATION_CACHE_DIR"
 
 
-def _populate(root):
-    active = configure_cache(str(root), min_compile_secs=0.0)
+def _populate():
+    active = configure_cache(min_compile_secs=0.0)
 
     @jax.jit
     def f(x):
@@ -27,34 +28,44 @@ def _populate(root):
 
 
 class TestCompileCacheShipping:
-    def test_configure_suffixes_host_fingerprint(self, tmp_path):
-        active = configure_cache(str(tmp_path / "a"))
-        assert os.path.basename(active) == _host_fingerprint()
-        assert os.path.isdir(active)
+    def test_configure_uses_env_dir_exactly(self, tmp_path, monkeypatch):
+        want = str(tmp_path / "a")
+        monkeypatch.setenv(ENV, want)
+        active = configure_cache()
+        assert active == want
+        assert os.path.isdir(want)
+        assert jax.config.jax_compilation_cache_dir == want
 
-    def test_export_import_round_trip(self, tmp_path):
-        src_root = tmp_path / "build_host"
-        active = _populate(src_root)
+    def test_unset_resolves_inside_checkout(self, monkeypatch):
+        monkeypatch.delenv(ENV, raising=False)
+        checkout = os.path.dirname(os.path.dirname(
+            os.path.abspath(adrates_tpu.__file__)))
+        assert cache_dir() == os.path.join(checkout, ".jax_cache")
+
+    def test_export_import_round_trip(self, tmp_path, monkeypatch):
+        src = tmp_path / "build_host"
+        monkeypatch.setenv(ENV, str(src))
+        active = _populate()
+        assert active == str(src)
         entries = os.listdir(active)
         assert entries, "jit compile produced no cache entry"
 
         tar = str(tmp_path / "cache.tar.gz")
-        export_cache(tar, cache_root=str(src_root))
+        export_cache(tar)
         with tarfile.open(tar) as tf:
-            names = tf.getnames()
-        assert any(_host_fingerprint() in n for n in names)
+            names = {os.path.basename(n) for n in tf.getnames()}
+        assert set(entries) <= names
 
-        dst_root = tmp_path / "prod_host"
-        dst_active = import_cache(tar, cache_root=str(dst_root))
-        assert os.path.basename(dst_active) == _host_fingerprint()
-        # the same-fingerprint entries arrived and would be replayed
+        dst = tmp_path / "prod_host"
+        monkeypatch.setenv(ENV, str(dst))
+        dst_active = import_cache(tar)
+        assert dst_active == str(dst)
+        # the entries arrived and would be replayed
         assert set(entries) <= set(os.listdir(dst_active))
         # the process cache config now points at the imported dir
         assert jax.config.jax_compilation_cache_dir == dst_active
 
-    def test_export_missing_root_raises(self, tmp_path):
-        import pytest
-
+    def test_export_missing_root_raises(self, tmp_path, monkeypatch):
+        monkeypatch.setenv(ENV, str(tmp_path / "nope"))
         with pytest.raises(FileNotFoundError):
-            export_cache(str(tmp_path / "x.tar.gz"),
-                         cache_root=str(tmp_path / "nope"))
+            export_cache(str(tmp_path / "x.tar.gz"))

@@ -15,7 +15,7 @@ from adrates_tpu.models import Model
 from adrates_tpu.trades.rates import OIS, OISCurve
 
 
-pytestmark = pytest.mark.slow  # file-level wall clock > 60 s (VERDICT r3 weak #5)
+pytestmark = pytest.mark.slow  # file-level wall clock > 60 s
 
 def make_swaps(value_dt, tenors, rates, freq=FrequencyTypes.ANNUAL):
     return [OIS(value_dt, ten, SwapTypes.PAY, px / 100, freq,

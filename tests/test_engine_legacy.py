@@ -108,7 +108,7 @@ class TestBuildCurveAd:
 
     def test_tiny_first_period_annuity(self, engine):
         """Documented divergence from the reference (_legacy_plan
-        docstring / ADVICE r3): a first accrual fraction that rounds to
+        docstring): a first accrual fraction that rounds to
         0.00 at 2dp keeps its REAL annuity in the chain here, where the
         reference resolves prev_key 0.0 to a seeded t=0 point with
         pv01=0 and silently drops the first period. Our curve truly

@@ -123,7 +123,7 @@ class TestLegacyAPI:
             rtol=1e-15)
 
     def test_single_element_query_padding(self):
-        """(1,)-shaped queries go through the TPU-safe padded path and
+        """(1,)-shaped queries go through the padded path (f64 rule 2) and
         return the same value as batched queries."""
         aux = ops.interp_fit(TIMES, DFS, InterpTypes.LINEAR_ZERO_RATES)
         single = ops.interp_df(jnp.array([7.3]), TIMES, DFS,

@@ -1,6 +1,5 @@
 """Compile-cache behavior: a second compute() on a new same-shape trade
-must reuse the cached XLA executable — zero recompiles (VERDICT round-1
-item 3's acceptance gate). The reference's `_curve_cache` intent
+must reuse the cached XLA executable — zero recompiles. The reference's `_curve_cache` intent
 (/root/reference/cavour/market/position/engine.py:2362-2412), done right.
 """
 
@@ -12,7 +11,7 @@ from adrates_tpu.utils import (CollateralType, CurrencyTypes, CurveTypes,
                                Date, DayCountTypes, FrequencyTypes,
                                InterpTypes, RequestTypes, SwapTypes)
 
-pytestmark = pytest.mark.slow  # file-level wall clock > 60 s (VERDICT r3 weak #5)
+pytestmark = pytest.mark.slow  # file-level wall clock > 60 s
 
 VALUE_DT = Date(1, 1, 2024)
 REQS = [RequestTypes.VALUE, RequestTypes.DELTA, RequestTypes.GAMMA]

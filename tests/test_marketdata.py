@@ -15,7 +15,7 @@ from adrates_tpu.marketdata import (FX_MARKET_DATA, MARKET_DATA,
 from adrates_tpu.models import Model
 from adrates_tpu.trades.rates import OIS
 
-pytestmark = pytest.mark.slow  # file-level wall clock > 60 s (VERDICT r3 weak #5)
+pytestmark = pytest.mark.slow  # file-level wall clock > 60 s
 
 VALUE_DT = Date(1, 1, 2024)
 
@@ -193,7 +193,7 @@ class TestOISUnderXccyCollateral:
 
     def test_basis_delta_vs_fd(self):
         """AD basis-spread ladder == central FD of the re-bootstrapped
-        XCCY curve (VERDICT round-1 item 2's acceptance gate)."""
+        XCCY curve."""
         from adrates_tpu.utils.global_types import CurveTypes as CT
         m = self._build_model()
         s = self._swap()
@@ -286,7 +286,7 @@ class TestModelSerialization:
 
     def test_inflation_roundtrip_preserves_index_state(self):
         """Seasonality factors, fixings, calendar and interp type must
-        survive the JSON round-trip (ADVICE r1: they were dropped, so
+        survive the JSON round-trip (they were once dropped, so
         restored YoY/ZCIS valuations differed)."""
         import numpy as np
         from adrates_tpu.utils.global_types import InflationInterpTypes

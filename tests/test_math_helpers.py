@@ -348,7 +348,7 @@ class TestModuleConstantParity:
         # 1 Apr 2024 is Easter Monday: day-of-year 92 (leap year)
         assert easterMondayDay[2024 - 1901] == 92
         # 299 entries = 1901..2199 inclusive, matching the reference
-        # list's length exactly (ADVICE r3)
+        # list's length exactly
         assert len(easterMondayDay) == 299
         assert len(list(easterMondayDay)) == 299
         assert easterMondayDay[:3] == [98, 90, 103]  # 1901-1903

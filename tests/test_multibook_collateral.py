@@ -1,5 +1,5 @@
 """Collateralized books at scale: OIS under FOREIGN collateral inside
-compile_multibook (VERDICT r3 "what's weak" #1 / next-round item 2).
+compile_multibook.
 
 The book path (multibook._rows_for_instrument collateral branch,
 multibook.py) projects a GBP OIS on GBP_OIS_SONIA but discounts on the

@@ -5,7 +5,7 @@ Reference semantics being matched at book scale:
 /root/reference/cavour/market/position/engine.py:2639-2728 (dual-curve
 float legs), 1411-1988 (XCCY discounting), 700-984 (FRN), 505-698 (bond).
 
-Split from test_multibook.py (VERDICT r3 weak #5); shared builders in
+Split from test_multibook.py; shared builders in
 multibook_cases.py. Per-trade ladders/gammas: test_multibook_pertrade.py;
 sharded/structured: test_multibook_sharded.py.
 """
@@ -223,7 +223,7 @@ class TestTileMultibook:
         # noise is ~max|delta|*eps*sqrt(n_terms) ≈ 1e-6, so anchor the
         # absolute floor to the measured ladder magnitude — CAPPED at
         # 1e-5 so the loosening stays bounded regardless of future
-        # ladder growth (ADVICE r3: the scaled atol must not silently
+        # ladder growth (the scaled atol must not silently
         # weaken the assembly-equivalence check; cap introduced with the
         # summation-order change that moved gamma assembly to the
         # structured per-stage pass)
@@ -241,7 +241,7 @@ class TestTileMultibook:
 
 class TestInflationBook:
     """ZCIS/YoY at book scale: breakevens ride inside the packed quote
-    vector (VERDICT round-2 item 2); PV/delta/gamma parity vs the
+    vector; PV/delta/gamma parity vs the
     per-trade engine and FD."""
 
     def test_quotes_include_breakevens(self, model_infl):
@@ -319,8 +319,7 @@ class TestInflationBook:
 
 class TestBookSpeed:
     """Book-scale SPEED (third-order) — make_multibook_speed_fn is the
-    exact AD tower over the aggregate graph (VERDICT r3 item 6; the
-    reference defines the SPEED enum but never implements it)."""
+    exact AD tower over the aggregate graph (the reference defines the SPEED enum but never implements it)."""
 
     def test_speed_vs_fd_of_gamma(self, model):
         from adrates_tpu.parallel import make_multibook_speed_fn
@@ -355,8 +354,8 @@ class TestBookSpeed:
                 speed[:, :, k], fd, rtol=5e-4, atol=1e-6 * scale)
 
     def test_speed_guard_at_large_n(self, model, monkeypatch):
-        """Above SPEED_MAX_QUOTES quotes the builder raises (VERDICT r4
-        weak #7: a flagship-size basket must get an error, not an
+        """Above SPEED_MAX_QUOTES quotes the builder raises (a
+        flagship-size basket must get an error, not an
         unbounded compile); force=True overrides."""
         from adrates_tpu.parallel import make_multibook_speed_fn
         from adrates_tpu.parallel import multibook as mbmod

@@ -1,6 +1,6 @@
 """Per-trade delta ladders and per-trade gamma matrices at book scale.
 
-Split from test_multibook.py (VERDICT r3 weak #5); builders in
+Split from test_multibook.py; builders in
 multibook_cases.py.
 """
 

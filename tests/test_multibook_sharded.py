@@ -1,7 +1,7 @@
 """Sharded (GSPMD) multibook analytics + the structured per-stage risk
 pass, on the virtual 8-device CPU mesh.
 
-Split from test_multibook.py (VERDICT r3 weak #5); builders in
+Split from test_multibook.py; builders in
 multibook_cases.py.
 """
 
@@ -49,7 +49,7 @@ class TestShardedMultibook:
         """GSPMD row-sharded analytics == unsharded on the virtual
         8-device CPU mesh: total PV, delta and gamma to f64 noise.
         Tiled x5 so NO row count divides the 8-way mesh — the padding
-        path (VERDICT r2 item 6) is what runs."""
+        path is what runs."""
         import jax
         from jax.sharding import Mesh
 
@@ -79,7 +79,7 @@ class TestShardedMultibook:
         """A lazy TileSpec book goes straight into
         make_sharded_multibook_fn: base rows replicate, the jitted
         expansion outputs SHARDED full-size rows, results match the
-        unsharded materialized reference (VERDICT r2 item 7)."""
+        unsharded materialized reference."""
         import jax
         from jax.sharding import Mesh
 
@@ -107,9 +107,9 @@ class TestShardedMultibook:
         self._check(fn(mb.basket.quotes0, shocks), ref)
 
     def test_2d_dcn_mesh(self, model):
-        """Rows shard over BOTH axes of a (dcn=2, book=4) mesh — the
-        multi-host layout compiled and executed on the virtual CPU mesh
-        (VERDICT r2 item 6)."""
+        """Rows shard over BOTH axes of a (host=2, book=4) mesh — the
+        multi-host layout compiled and executed on the virtual CPU
+        mesh."""
         import jax
         from jax.sharding import Mesh
 
@@ -128,17 +128,17 @@ class TestShardedMultibook:
 
         ref = make_multibook_fn(mbb, want_gamma=True)(
             mb.basket.quotes0, shocks)
-        mesh = Mesh(np.array(devices[:8]).reshape(2, 4), ("dcn", "book"))
-        sharded = shard_multibook(mbb, mesh, axis=("dcn", "book"))
+        mesh = Mesh(np.array(devices[:8]).reshape(2, 4), ("host", "book"))
+        sharded = shard_multibook(mbb, mesh, axis=("host", "book"))
         fn = make_sharded_multibook_fn(sharded, mesh,
-                                       axis=("dcn", "book"),
+                                       axis=("host", "book"),
                                        want_gamma=True)
         self._check(fn(mb.basket.quotes0, shocks), ref)
 
 
 class TestShardedPerTrade:
-    """Mesh-sharded per-trade risk (parallel/pertrade_sharded.py,
-    VERDICT r3 item 4): ladders and selected gammas computed with rows /
+    """Mesh-sharded per-trade risk (parallel/pertrade_sharded.py):
+    ladders and selected gammas computed with rows /
     the selection split over the 8-device mesh must match the
     single-device builders to f64 summation noise."""
 
@@ -193,7 +193,7 @@ class TestShardedPerTrade:
 
     def test_sharded_gamma_blocks_full_book(self, model):
         """FULL-book block gammas with each signature group's base
-        trades split over the mesh (VERDICT r4 missing #3) must match
+        trades split over the mesh must match
         the single-device builder group by group: same signatures, same
         quote maps, same trade ids, blocks to f64 noise. Lazy x5 tile
         exercises the notional broadcast on sharded base blocks."""

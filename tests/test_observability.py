@@ -1,6 +1,6 @@
 """Structured logging/metrics + device policy + tile guards.
 
-SURVEY §5 named metrics/observability a TPU-build obligation; these
+SURVEY §5 named metrics/observability an obligation of this build; these
 tests pin the instrumentation contract (events recorded with counts and
 durations) and the guard rails added in round 2.
 """

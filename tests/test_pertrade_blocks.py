@@ -1,5 +1,4 @@
-"""Block-sparse per-trade gamma matrices (parallel/pertrade_blocks.py —
-VERDICT r3 next-round item 3).
+"""Block-sparse per-trade gamma matrices (parallel/pertrade_blocks.py).
 
 The contract: for EVERY trade, the [k, k] own-block equals the dense
 [N, N] per-trade gamma restricted to the block's quote indices, and the

@@ -4,10 +4,8 @@ make_multibook_fn exactly on every dispatch path (plain jit, kept AOT
 executables, multi-chunk scenario batching, delta-only), since the split
 only moves the jit cut points (structured_risk.make_structured_parts).
 
-VERDICT r3 "what's missing" #1 / weak #2: the flagship cold start was a
-~300 s monolithic compile; the staged regions precompile concurrently on
-backends whose compile service parallelizes across client threads
-(docs/tpu_operational_notes.md round-4 findings).
+The flagship monolith is the largest compile in the package; the staged
+regions are smaller programs that precompile concurrently.
 """
 
 import numpy as np

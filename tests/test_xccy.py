@@ -16,7 +16,7 @@ from adrates_tpu.models import Model
 from adrates_tpu.trades.rates import (XccyBasisSwap, XccyCurve, XccyFixFix,
                                       XccyFixFloat)
 
-pytestmark = pytest.mark.slow  # file-level wall clock > 60 s (VERDICT r3 weak #5)
+pytestmark = pytest.mark.slow  # file-level wall clock > 60 s
 
 VALUE_DT = Date(1, 1, 2024)
 TENORS = ["1M", "6M", "1Y", "2Y", "3Y", "5Y", "7Y", "10Y", "20Y", "30Y"]
@@ -275,7 +275,7 @@ class TestXccyRisk:
 
 class TestStrictCurveRouting:
     """Mismatched XCCY pairs must raise, never silently discount on some
-    other pair's basis curve (VERDICT round-2 item 5)."""
+    other pair's basis curve."""
 
     def test_missing_ois_curve_raises_libError(self, model):
         from adrates_tpu.utils import LibError
